@@ -5,10 +5,9 @@ resampling + ring rotation + global ESS/LML) at a fixed per-device particle
 count and reports throughput at 1 device vs all devices — weak-scaling
 efficiency = thr(N)/ (N * thr(1)).
 
-On real multi-chip hardware this measures ICI scaling; on a single host it
-only validates the harness mechanics over virtual CPU devices (virtual
-devices share host cores, so the efficiency number is meaningless
-off-hardware):
+On several GPUs this measures multi-card scaling; on virtual CPU devices
+it only validates the harness mechanics (virtual devices share host cores,
+so the efficiency number means nothing there):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         JAX_PLATFORMS=cpu python bench_scaling.py
@@ -25,12 +24,13 @@ import time
 def main():
     import numpy as np
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
     import jax.numpy as jnp
     import jax.random as jr
     from jax import lax
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from genparticlefilters_tpu.utils.compile_cache import use_compile_cache
+    use_compile_cache()
     import genparticlefilters_tpu as g
     from genparticlefilters_tpu.models.object_motion import (
         make_object_motion, init_state, obs_at_t, synthesize_data)
@@ -98,6 +98,7 @@ def main():
         "value": round(eff, 4),
         "unit": "efficiency",
         "vs_baseline": round(eff / 0.85, 3),  # target >= 85% (BASELINE.json)
+        "device_kind": devices[0].device_kind,
         "throughput_1": round(thr1, 1),
         "throughput_N": round(thrN, 1),
         "n_devices": len(devices),

@@ -3,9 +3,9 @@
 A from-scratch reimplementation of the capabilities of
 probcomp/GenParticleFilters.jl (reference at /root/reference) designed
 TPU-first: traces are fixed-shape pytrees, per-particle loops are ``jax.vmap``
-over a particle axis, resampling/diagnostics are XLA/Pallas kernels, and
-multi-chip scaling uses ``jax.sharding`` meshes with shard-local resampling
-plus ICI collectives.
+over a particle axis, resampling/diagnostics are static-shape XLA
+computations, and multi-device scaling uses ``jax.sharding`` meshes with
+shard-local resampling plus explicit collectives.
 """
 
 from . import core as _core

@@ -1,20 +1,8 @@
-"""Global performance toggles."""
+"""Global library settings."""
 
 from __future__ import annotations
 
 import contextlib
-
-#: Use the fused Pallas clustered gather+unpack (ops/fused_gather.py) for the
-#: resampling ancestry gather when parents are non-decreasing
-#: (systematic/stratified with sort_particles=False); measured ~4x over the
-#: XLA take-then-unpack path on v5e at N=100K. Per-chip only — a pallas_call
-#: does not partition under GSPMD auto-sharding, so the resampling ops
-#: auto-detect multi-device inputs (``smc/resample.py::_maybe_partitioned``)
-#: and fall back to the XLA gather path regardless of this flag; the flag
-#: remains as a manual kill switch. The shard-local ops in parallel/ run
-#: the fused path per shard inside their shard_map bodies (where every
-#: value is provably local), still subject to this flag.
-clustered_gather: bool = True
 
 #: Trace-time guard against the batched-interpretation shape ambiguity: a
 #: genuinely unbatched array whose leading dim equals the particle count N
@@ -38,13 +26,3 @@ def use_check_batched_layout(enabled: bool = True):
     finally:
         check_batched_layout = prev
 
-
-@contextlib.contextmanager
-def use_clustered_gather(enabled: bool = True):
-    global clustered_gather
-    prev = clustered_gather
-    clustered_gather = enabled
-    try:
-        yield
-    finally:
-        clustered_gather = prev

@@ -2,13 +2,13 @@
 
 The SMC layer turns per-particle GFI calls into one ``jax.vmap`` over the
 particle axis. WHERE that axis lands in each stored trace leaf is a pure
-layout choice — and on TPU it decides the memory-traffic class of every
+layout choice — and it decides the memory-traffic class of every
 filter phase: with particle-major ``[N, T]`` leaves (vmap's default
 ``out_axes=0``) any dynamic-timestep column op (trace extension, windowed
-rejuvenation) touches every (8,128) tile of the leaf — a full O(N·T) pass,
+rejuvenation) touches every tile of the leaf — a full O(N·T) pass,
 making T-step filters O(N·T²). With **time-major** ``[T, N]`` leaves a
-timestep is a contiguous lane-dense row: ``dynamic_update_slice`` on the
-major axis is O(N), and the resampling ancestry gather is an in-lane gather.
+timestep is a contiguous row: ``dynamic_update_slice`` on the major axis
+is O(N), and the resampling ancestry gather is a column gather.
 
 This module is the single source of truth for that layout:
 

@@ -7,7 +7,7 @@ them from Gen; see /root/reference/src/GenParticleFilters.jl:3 and usages like
 Design: every distribution is a lightweight pytree whose parameters may be
 traced JAX arrays, with ``sample(key) -> value`` and ``log_prob(value) -> f32``
 both shape-polymorphic and free of Python control flow, so they vectorize
-across the particle axis under ``jax.vmap`` and compile onto the TPU VPU.
+across the particle axis under ``jax.vmap`` and compile to fused elementwise kernels.
 """
 
 from __future__ import annotations
@@ -435,8 +435,8 @@ class MvNormalDiag(Distribution):
 class MvNormal(Distribution):
     """Multivariate normal with full covariance; event = last axis.
 
-    The covariance Cholesky solve is a small matmul — it maps onto the MXU
-    when the event dimension is large and batches across particles.
+    The covariance Cholesky solve is a small matmul that batches across
+    particles.
     """
     loc: Any
     cov: Any

@@ -370,8 +370,7 @@ class batched_interpretation:
 
     Why this exists: under vmap, every particle pays a full counter-mode
     PRNG pass (~100 int-ops) per ``fold_in`` in its key chain — one per
-    site plus per-step fold-ins — measured ~0.1 ms/step of pure key
-    arithmetic at N=100K on v5e (scripts/rng_cost.py). Batched, site keys
+    site plus per-step fold-ins. Batched, site keys
     are SCALAR fold-ins and each site draws its [batch] values in one
     counter-mode pass; the handler accumulators (score/weight/logq/sel_*)
     become per-particle [batch] vectors. The produced trace pytrees are

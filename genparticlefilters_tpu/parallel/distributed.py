@@ -7,13 +7,12 @@ weight, never touch the global LML) are exactly the correctness spec for
 ``pf_resample_blockwise(... mesh=mesh)`` runs the resample inside a
 ``jax.shard_map`` body — per-device, with ZERO inter-chip communication by
 construction (the compiled HLO is asserted collective-free in
-``tests/test_collectives.py``), and with the fused Pallas resampling
-gathers enabled on each local shard.
+``tests/test_collectives.py``).
 
 Periodic cross-shard mixing bounds the weight imbalance between shards:
 
 - :func:`pf_rotate_blocks` — whole blocks ride a one-hop
-  ``jax.lax.ppermute`` ring rotation over ICI (HLO: one
+  ``jax.lax.ppermute`` ring rotation (HLO: one
   ``collective-permute`` per state leaf, nothing else);
 - :func:`pf_shuffle_blocks` — an equal-split block transpose via
   ``jax.lax.all_to_all`` (HLO: ``all-to-all``), each device keeping 1/K of
@@ -39,9 +38,8 @@ from jax.sharding import PartitionSpec as P
 from ..core.batching import axes_spec
 from ..smc.resample import (multinomial_parents, residual_parents,
                             stratified_parents, systematic_parents,
-                            multinomial_cu, residual_F_fused, stratified_cu,
-                            systematic_F, _gather_traces, _resample_block,
-                            _new_weights_sub, assume_unpartitioned)
+                            _gather_traces, _resample_block,
+                            _new_weights_sub)
 from ..smc.state import ParticleFilterState
 from ..utils.weights import safe_softmax, logsumexp
 from .mesh import PARTICLE_AXIS, state_pspecs
@@ -57,23 +55,6 @@ _PARENT_FNS = {
     "systematic": lambda k, w, lp: systematic_parents(k, w,
                                                       log_priorities=lp),
 }
-
-# fused-path kernels per method for the shard-local (shard_map) body:
-# (F_fn, cu_fn, clustered) — stratified DEFAULTS to its sorted parent path
-# (the ref sorts by weight first, src/resample.jl:154-158), so parents are
-# not clustered and the fused gather does not apply; pass
-# ``sort_particles=False`` to pf_resample_blockwise for the fused
-# unsorted-stratified formulation (same stratified law, no variance-
-# reduction pre-sort — parents are then non-decreasing and ride the
-# staircase kernel like systematic).
-_FUSED_FNS = {
-    "multinomial": (None, multinomial_cu, True),
-    "residual": (residual_F_fused, None, True),
-    "stratified": (None, None, False),
-    "stratified_unsorted": (None, stratified_cu, True),
-    "systematic": (systematic_F, None, True),
-}
-
 
 def _check_blocks(n: int, n_blocks: int, mesh, axis_name: str):
     if n % n_blocks != 0:
@@ -113,26 +94,21 @@ def pf_resample_blockwise(key, state: ParticleFilterState, n_blocks: int,
 
     With ``mesh`` given (a 1-D mesh whose ``axis_name`` axis has exactly
     ``n_blocks`` devices), the resample runs inside ``jax.shard_map``:
-    per-device, provably collective-free (asserted on compiled HLO in
-    ``tests/test_collectives.py``), with the fused Pallas resampling
-    gathers enabled per shard. Without a mesh, a vmap over blocks computes
-    the identical result on one device.
+    per-device and provably collective-free (asserted on compiled HLO in
+    ``tests/test_collectives.py``). Without a mesh, a vmap over blocks
+    computes the identical result on one device.
 
     ``sort_particles`` applies to ``method="stratified"`` only: the
     default (None/True) keeps the reference's weight-sorted stratified
-    draws (variance reduction, src/resample.jl:154-158) on the unfused
-    gather; ``False`` drops the pre-sort — the same stratified law with
-    non-decreasing parents, riding the fused staircase kernel exactly
-    like systematic.
+    draws (variance reduction, src/resample.jl:154-158); ``False`` drops
+    the pre-sort — the same stratified law with non-decreasing parents.
     """
     n = state.n_particles
     _check_blocks(n, n_blocks, mesh, axis_name)
     b = n // n_blocks
     if method not in _PARENT_FNS:
         raise ValueError(f"Resampling method {method!r} not recognized.")
-    fused_key = method
     if method == "stratified" and sort_particles is False:
-        fused_key = "stratified_unsorted"
         parent_fn = lambda k, w, lp: stratified_parents(
             k, w, log_priorities=lp, sort_particles=False)
     else:
@@ -140,15 +116,12 @@ def pf_resample_blockwise(key, state: ParticleFilterState, n_blocks: int,
     keys = jr.split(key, n_blocks)
 
     if mesh is not None:
-        F_fn, cu_fn, clustered = _FUSED_FNS[fused_key]
         leaves, treedef, specs, flags = _traces_pspecs(state, axis_name)
 
         def local(keys_l, lw, *tr_leaves):
             traces = jax.tree_util.tree_unflatten(treedef, tr_leaves)
-            with assume_unpartitioned():
-                new_traces, parents, new_lw = _resample_block(
-                    keys_l[0], traces, lw, parent_fn, priority_fn,
-                    F_fn=F_fn, cu_fn=cu_fn, clustered=clustered)
+            new_traces, parents, new_lw = _resample_block(
+                keys_l[0], traces, lw, parent_fn, priority_fn)
             gparents = jax.lax.axis_index(axis_name) * b + parents
             return (new_lw, gparents.astype(jnp.int32),
                     *jax.tree_util.tree_leaves(new_traces))
@@ -157,10 +130,6 @@ def pf_resample_blockwise(key, state: ParticleFilterState, n_blocks: int,
             local, mesh=mesh,
             in_specs=(P(axis_name), P(axis_name), *specs),
             out_specs=(P(axis_name), P(axis_name), *specs),
-            # the fused Pallas gathers inside the body emit ShapeDtypeStructs
-            # without vma annotations; semantics are pinned against the
-            # no-mesh oracle (tests/test_collectives.py, scripts/tpu_checks)
-            check_vma=False,
         )(keys, state.log_weights, *leaves)
         new_lw, parents = out[0], out[1]
         new_traces = jax.tree_util.tree_unflatten(treedef, out[2:])
@@ -170,37 +139,6 @@ def pf_resample_blockwise(key, state: ParticleFilterState, n_blocks: int,
     custom = priority_fn is not None
     lw = state.log_weights.reshape(n_blocks, b)
     lp = priority_fn(lw) if custom else lw
-
-    from .. import config as _config
-    from ..smc.resample import (_maybe_partitioned, blockwise_compose,
-                                _gather_traces_from_F, _gather_traces_from_cu)
-    use_fused = (not custom
-                 and fused_key in ("systematic", "multinomial", "residual",
-                                   "stratified_unsorted")
-                 and _config.clustered_gather
-                 and jax.devices()[0].platform == "tpu"
-                 and not _maybe_partitioned(state.log_weights))
-    if use_fused:
-        # ONE fused clustered-kernel pass for all blocks: per-block
-        # offspring structures composed globally (see blockwise_compose) —
-        # the blockwise path stops paying the XLA prefix-scan/scatter
-        # parents cost the fused full-state path eliminated (VERDICT r3
-        # #6); same offspring law as the per-block fallback below
-        # (bit-identical for systematic).
-        w_blocks = jax.vmap(lambda v: safe_softmax(v)[0])(lp)
-        kind, payload = blockwise_compose(
-            key, w_blocks,
-            "stratified" if fused_key == "stratified_unsorted" else method)
-        if kind == "cu":
-            new_traces, parents = _gather_traces_from_cu(state.traces,
-                                                         *payload)
-        else:
-            new_traces, parents = _gather_traces_from_F(state.traces,
-                                                        payload)
-        avg = (logsumexp(lw, axis=1) - jnp.log(float(b)))[:, None]
-        new_lw = jnp.broadcast_to(avg, (n_blocks, b)).reshape(n)
-        return ParticleFilterState(new_traces, new_lw, state.log_ml_est,
-                                   parents)
 
     def per_block(k, lwb, lpb):
         w, _ = safe_softmax(lpb)
@@ -229,7 +167,7 @@ def pf_shuffle_blocks(state: ParticleFilterState, n_blocks: int,
     ``b/K`` particles ``[j*b + i*(b/K), j*b + (i+1)*(b/K))`` from every old
     block j (requires ``n_blocks**2 | n``). On a mesh this is ONE
     ``jax.lax.all_to_all`` per state leaf — each device keeps 1/K of its
-    particles and exchanges K-1 equal slices over ICI; run it every few
+    particles and exchanges K-1 equal slices; run it every few
     steps to decorrelate shards. Without a mesh: the identical permutation
     as a gather."""
     n = state.n_particles
@@ -280,7 +218,7 @@ def pf_rotate_blocks(state: ParticleFilterState, n_blocks: int,
                      axis_name: str = PARTICLE_AXIS) -> ParticleFilterState:
     """Ring-rotate whole blocks by ``shift``: block j's particles move to
     block ``(j+shift) mod K``. On a mesh this is ONE one-hop
-    ``jax.lax.ppermute`` per state leaf over the ICI ring (HLO:
+    ``jax.lax.ppermute`` per state leaf (HLO:
     ``collective-permute``, asserted in ``tests/test_collectives.py``).
     Without a mesh: the identical permutation as a gather."""
     n = state.n_particles

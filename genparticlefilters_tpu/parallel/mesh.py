@@ -29,8 +29,7 @@ PARTICLE_AXIS = "p"
 def particle_mesh(devices=None, axis_name: str = PARTICLE_AXIS) -> Mesh:
     """1-D mesh over all (or given) devices with the particle axis."""
     devices = jax.devices() if devices is None else list(devices)
-    return Mesh(jnp.array(devices).reshape(-1) if False else devices,
-                (axis_name,))
+    return Mesh(devices, (axis_name,))
 
 
 def state_pspecs(state, axis_name: str = PARTICLE_AXIS, n: int | None = None):

@@ -2,8 +2,7 @@
 
 The reference's per-particle ``generate`` loop (src/initialize.jl:39-41)
 becomes a single ``jax.vmap`` over split PRNG keys — one XLA computation over
-the whole particle set, MXU/VPU-friendly and shardable along the particle
-axis. Variants mirror the reference's four methods:
+the whole particle set, shardable along the particle axis. Variants mirror the reference's four methods:
 
 - basic constrained generation (src/initialize.jl:31-44)
 - custom proposal, weight = model − proposal (src/initialize.jl:46-62)

@@ -9,15 +9,15 @@ weight semantics exactly (ref lines 190-218): zeros (or weight/priority
 ratio summing to n) for full states; block-total-preserving weights for
 sub-states, whose LML is never touched (ref lines 185-187).
 
-TPU-native formulation: every data-dependent Julia loop becomes O(N)
-static-shape arithmetic. Systematic/stratified draws and residual's
-deterministic block have closed-form offspring counts, converted to parent
-indices by a sort-free scatter + ``cummax`` (``counts_to_parents``); only
-multinomial draws (and residual's remainder) need an inverse-CDF
-searchsorted. The ancestor gather ``traces[parents]`` packs all 4-byte trace
-leaves into one [N, D] matrix and gathers rows once (cross-shard exchange
-lives in ``parallel/``; a Pallas ranged-DMA kernel for clustered parents is
-in ``ops/sorted_gather.py``).
+Formulation: every data-dependent Julia loop becomes O(N) static-shape
+arithmetic. Systematic/stratified draws and residual's deterministic block
+have closed-form cumulative offspring counts ``F``; multinomial draws (and
+residual's remainder) count sorted uniforms below each cumulative weight.
+``F`` becomes the parent vector by a scatter + ``cummax``
+(``counts_to_parents``). The ancestor gather ``traces[parents]`` packs all
+4-byte trace leaves into one [D, N] matrix and gathers its columns once;
+on a single GPU one Pallas/Triton kernel does both steps from ``F``
+(``_gather_from_F``). Cross-shard exchange lives in ``parallel/``.
 """
 
 from __future__ import annotations
@@ -30,20 +30,18 @@ from ..utils.weights import safe_softmax, apply_check, logsumexp
 from .state import ParticleFilterState, ParticleFilterSubState
 
 __all__ = ["pf_resample", "pf_multinomial_resample", "pf_residual_resample",
-           "blockwise_compose",
            "pf_stratified_resample", "pf_systematic_resample",
            "multinomial_parents", "residual_parents", "stratified_parents",
            "systematic_parents", "stratified_F", "systematic_F",
-           "multinomial_F", "residual_F", "multinomial_cu",
-           "stratified_cu", "residual_F_fused"]
+           "multinomial_F", "residual_F"]
 
 
 # ---------------------------------------------------------------------------
-# Fast 1-D prefix scans: XLA's 1-D cumulative-op lowering costs ~202 µs at
-# n=1M on v5e (reduce-window log-decomposition with poor constants); the
-# blocked [n/512, 512] formulation — per-row lane scan + a tiny cross-row
-# offset scan — measures 14.6 µs (/tmp/cum2.py sweep). Used for every
-# [N]-sized scan on the resampling paths; small n keeps the XLA op.
+# 1-D prefix scans, blocked as [n/512, 512]: a per-row scan plus a small
+# cross-row offset scan. Used for every [N]-sized scan on the resampling
+# paths; small n keeps the XLA op. On an H100 (700 W) at n=1M the blocked
+# form and ``jnp.cumsum`` measured 0.18-0.21 ms against 0.17-0.25 ms (f32)
+# and 0.15-0.19 ms against 0.14-0.25 ms (int32) over two runs (PERF.md).
 # ---------------------------------------------------------------------------
 
 _BLK_SCAN = 512
@@ -95,14 +93,12 @@ def multinomial_parents(key, weights, n_out: int | None = None):
     """IID categorical ancestors (ref: src/resample.jl:59), emitted in
     clustered (non-decreasing) order — the offspring multiset is exchangeable
     over output slots, so this is distributionally identical to iid slot
-    order for every resampling use, and the clustering both enables the
-    fused TPU gather and makes the ancestry gather cache-friendly.
+    order for every resampling use, and the clustering makes the ancestry
+    gather read nearly contiguous columns.
 
-    Sort-free: sorted uniforms by exponential spacings + a bitonic-merge
-    count (``_merge_count``) — never ``jax.random.categorical`` ([n_out, N]
-    Gumbel matrix), never a concat bitonic SORT (~17x more passes), never
-    ``searchsorted`` (log N random in-lane gather passes; measured 5x slower
-    than even the sort at N=100K).
+    Sort-free: sorted uniforms by exponential spacings + a merge count
+    (``_merge_count``) — never ``jax.random.categorical`` ([n_out, N]
+    Gumbel matrix).
     """
     n = weights.shape[0]
     n_out = n if n_out is None else n_out
@@ -123,8 +119,7 @@ def counts_to_parents(counts, n_out: int):
     """Turn per-particle offspring counts (Σ = n_out) into the parent index
     vector [n_out] in particle order — sort-free: scatter each particle's
     index at its first output slot, then forward-fill with a cummax.
-    O(N) compute / O(N) memory, the TPU speed-of-light formulation (the
-    sort-based searchsorted alternative moves ~50x more HBM bytes)."""
+    O(N) compute / O(N) memory."""
     counts = counts.astype(jnp.int32)
     cum = _cumsum1(counts)
     starts = cum - counts
@@ -143,13 +138,6 @@ def _pinned_F(cdf_hits, n_out: int):
     return _cummax1(F)  # enforce monotone under roundoff
 
 
-def _strata_counts(cdf_hits, n_out: int):
-    """counts_i = F_i − F_{i−1} from the pinned cumulative hits."""
-    F = _pinned_F(cdf_hits, n_out)
-    prev = jnp.concatenate([jnp.zeros((1,), F.dtype), F[:-1]])
-    return F - prev
-
-
 def stratified_F(key, weights, n_out: int | None = None):
     """Pinned cumulative hit counts for stratified resampling: one uniform
     per stratum [i/n,(i+1)/n); F_i = ⌊c_i⌋ + [v_{⌊c_i⌋} ≤ c_i − ⌊c_i⌋] with
@@ -164,23 +152,6 @@ def stratified_F(key, weights, n_out: int | None = None):
     return _pinned_F(F, n_out)
 
 
-def stratified_cu(key, weights, n_out: int | None = None):
-    """Float brackets for the fused stratified gather: normalized
-    cumulative weights ``c`` and the per-stratum draws
-    ``u_j = (j + v_j)/n`` — ascending BY CONSTRUCTION (stratum j's draw
-    lives in [j/n, (j+1)/n)), so the inverse-CDF staircase kernel applies
-    exactly as in ``multinomial_cu`` with NO sorted-uniform construction,
-    no merged count array, and — unlike ``stratified_F`` — no random
-    ``v[⌊c⌋]`` gather (measured ~0.6 ms/step of the 1.0 ms unsorted-
-    stratified resample phase at N=100K)."""
-    n_out = weights.shape[0] if n_out is None else n_out
-    v = jr.uniform(key, (n_out,), dtype=jnp.float32)
-    u = (jnp.arange(n_out, dtype=jnp.float32) + v) / n_out
-    u = jnp.maximum(u, 1e-37)  # u[0]=0 would match no bracket (c_prev < u)
-    c = _cummax1(_cumsum1(weights))
-    return c / jnp.maximum(c[-1], 1e-37), u
-
-
 def systematic_F(key, weights, n_out: int | None = None):
     """Pinned cumulative hit counts for systematic resampling: single shared
     uniform; F_i = ⌊n·cumsum(w)_i − u0⌋ + 1."""
@@ -193,16 +164,17 @@ def systematic_F(key, weights, n_out: int | None = None):
 def _sorted_uniforms_cum(key, n: int):
     """Cumulative exponential spacings ``ce`` [n+1]: the order statistics of
     n Uniform(0,1) draws are ``ce[j]/ce[n]`` for j<n — O(n), no sort.
-    cummax enforces the non-decreasing contract the bracket kernels rely
-    on (XLA's parallel-prefix cumsum is not locally monotone under f32
-    rounding; see multinomial_cu)."""
+    cummax keeps them non-decreasing (a parallel-prefix cumsum is not
+    locally monotone under f32 rounding)."""
     return _cummax1(_cumsum1(jr.exponential(key, (n + 1,), jnp.float32)))
 
 
 def _merge_count(c, u):
-    """``F_i = #{j : u_j ≤ c_i}`` for ascending non-negative f32 ``c`` [n]
-    and ascending ``u`` [m] (``+inf`` padding allowed in ``u``) — via ONE
-    bitonic **merge** network, not a full bitonic sort.
+    """``F_i = #{j : u_j ≤ c_i}`` — ``jnp.searchsorted(u, c, side="right")``
+    — for ascending non-negative f32 ``c`` [n] and ascending ``u`` [m]
+    (both < 2) via ONE bitonic **merge** network, not a full bitonic sort.
+    A parallel-prefix cumsum is not locally monotone under f32 rounding, so
+    callers pass ``c`` through ``_cummax1`` first.
 
     The origin tag rides in the LOW BIT of an order-preserving int32 view of
     the key (positive-f32 bitcast is monotone; ``<< 1`` is safe for values
@@ -210,9 +182,7 @@ def _merge_count(c, u):
     payload swap) and (b) breaks u==c ties as u-before-c — exactly the
     ``side='right'`` counting semantics, bit-exactly. ``[c_asc, +inf_pad,
     u_desc]`` is bitonic, so log2(n+m) roll/min/max passes sort it: pure
-    elementwise VPU work plus one unique-index scatter — no random gathers
-    (each costs ~0.6 ms at N=100K on v5e; a searchsorted binary search
-    measures 5x WORSE than even the concat sort)."""
+    elementwise work plus one unique-index scatter."""
     n, m = c.shape[0], u.shape[0]
     Mp = 1 << max(1, (n + m - 1).bit_length())
     ck = (jax.lax.bitcast_convert_type(c, jnp.int32) << 1) | 1
@@ -220,57 +190,20 @@ def _merge_count(c, u):
     pad = jnp.iinfo(jnp.int32).max - 1  # even: tag bit 0, never read as c
     z = jnp.concatenate([
         ck, jnp.full((Mp - n - m,), pad, jnp.int32), uk[::-1]])
-    from .. import config as _config
-    from ..ops.merge_count import bitonic_merge_sorted, merge_fits_vmem
-    use_kernel = (Mp % 128 == 0 and merge_fits_vmem(Mp)
-                  and _config.clustered_gather
-                  and jax.devices()[0].platform == "tpu"
-                  and not _maybe_partitioned(c))
     i = jnp.arange(Mp, dtype=jnp.int32)
-    if use_kernel:
-        # all log2(Mp) merge stages run VMEM-resident (ops/merge_count.py)
-        z = bitonic_merge_sorted(z)
-    else:
-        d = Mp >> 1
-        while d >= 1:
-            # stage-d pairing (i <-> i+d within 2d blocks): positions with
-            # bit d clear take min with the +d partner, others max with -d
-            lo_half = (i & d) == 0
-            z = jnp.where(lo_half, jnp.minimum(z, jnp.roll(z, -d)),
-                          jnp.maximum(z, jnp.roll(z, d)))
-            d >>= 1
+    d = Mp >> 1
+    while d >= 1:
+        # stage-d pairing (i <-> i+d within 2d blocks): positions with
+        # bit d clear take min with the +d partner, others max with -d
+        lo_half = (i & d) == 0
+        z = jnp.where(lo_half, jnp.minimum(z, jnp.roll(z, -d)),
+                      jnp.maximum(z, jnp.roll(z, d)))
+        d >>= 1
     tags = z & 1
     r = _cumsum1(tags) - tags              # rank among c at c slots
     F_at_slot = i - r                        # u's before this c
     return jnp.zeros((n,), jnp.int32).at[
         jnp.where(tags == 1, r, n)].set(F_at_slot, mode="drop")
-
-
-def multinomial_cu(key, weights, n_out: int | None = None):
-    """Float brackets for the fused multinomial gather: normalized
-    cumulative weights ``c`` [N] (``c[-1] == 1``) and ascending sorted
-    uniforms ``u`` [n_out] from exponential spacings. Output slot j's
-    parent is the unique s with ``c_{s-1} < u_j <= c_s`` — the inverse-CDF
-    condition evaluated *inside* the staircase gather kernel
-    (ops/fused_gather.resample_gather_rows_u), so neither the merged count
-    array F nor any XLA scatter is ever built (the scatter alone measured
-    1.07 ms of multinomial's 1.87 ms at N=100K)."""
-    n_out = weights.shape[0] if n_out is None else n_out
-    ce = _sorted_uniforms_cum(key, n_out)
-    # u[0] == 0.0 exactly (first exponential spacing underflows, p ~ 2^-23
-    # per call) would match NO bracket — the kernel condition is strictly
-    # c_prev < u — silently corrupting output slot 0; nudge it positive,
-    # mirroring residual_F_fused's rc clamp
-    u = jnp.maximum(ce[:-1] / ce[-1], 1e-37)
-    # XLA's parallel-prefix cumsum is NOT guaranteed locally monotone under
-    # f32 rounding (observed at N=2^18 with degenerate weights): a tiny
-    # decrease makes bracket s+2 overlap bracket s, so one query matches
-    # TWO brackets and the byte-summed one-hot select corrupts that output
-    # slot. cummax restores non-decreasing brackets exactly (an inversion
-    # collapses to an empty bracket), the float analogue of _pinned_F's
-    # monotone enforcement on the count paths.
-    c = _cummax1(_cumsum1(weights))
-    return c / jnp.maximum(c[-1], 1e-37), u
 
 
 def multinomial_F(key, weights, n_out: int | None = None):
@@ -279,10 +212,10 @@ def multinomial_F(key, weights, n_out: int | None = None):
     F_i = #{j : U_(j) ≤ cumw_i} by a bitonic-merge count. Distributionally
     identical to iid categorical ancestry (the offspring multiset is
     exchangeable over output slots); emits *clustered* (non-decreasing)
-    parents, which the fused TPU resampling gather requires."""
+    parents."""
     n_out = weights.shape[0] if n_out is None else n_out
     ce = _sorted_uniforms_cum(key, n_out)
-    c = _cumsum1(weights)
+    c = _cummax1(_cumsum1(weights))  # the merge needs ascending c
     u = ce[:-1] / ce[-1]
     F = _merge_count(c / jnp.maximum(c[-1], 1e-37), u)
     return _pinned_F(F, n_out)
@@ -300,7 +233,7 @@ def residual_F(key, weights, n_out: int | None = None):
     det = jnp.floor(scaled).astype(jnp.int32)
     n_res = n_out - jnp.sum(det)
     resid = scaled - det.astype(weights.dtype)
-    rcum = _cumsum1(resid)
+    rcum = _cummax1(_cumsum1(resid))  # the merge needs ascending c
     ce = _sorted_uniforms_cum(key, n_out)
     denom = ce[n_res]  # S_{R+1}: U_(j) = ce[j]/denom for j < R
     j = jnp.arange(n_out, dtype=jnp.int32)
@@ -309,41 +242,6 @@ def residual_F(key, weights, n_out: int | None = None):
     u = jnp.where(j < n_res, jnp.minimum(ce[:-1] / denom, 1.5), 1.75)
     F_res = _merge_count(rcum / jnp.maximum(rcum[-1], 1e-37), u)
     return _pinned_F(_cumsum1(det) + F_res, n_out)
-
-
-def residual_F_fused(key, weights, n_out: int | None = None,
-                     interpret: bool = False):
-    """Residual cumulative hit counts with NO merge and NO scatter, for the
-    fused TPU path: ``F = cumsum(det) + G`` where the residual-draw counts
-    ``G_i = #{u < rc_i}`` come from one pass of the float-bracket staircase
-    kernel with roles swapped — sources are the sorted residual uniforms,
-    queries are the normalized residual cumsum, and the kernel's gathered
-    row-index output IS G. Boundary ties (an f32 uniform exactly equal to a
-    cumsum value) count to the right bin here vs the left bin in
-    ``residual_F`` — both are valid realizations of the same continuous
-    law, so the offspring-count distribution is unchanged."""
-    n_out = weights.shape[0] if n_out is None else n_out
-    scaled = n_out * weights
-    det = jnp.floor(scaled).astype(jnp.int32)
-    n_res = n_out - jnp.sum(det)
-    resid = scaled - det.astype(weights.dtype)
-    # cummax: XLA's parallel-prefix cumsum is not locally monotone under
-    # f32 rounding; see multinomial_cu (the kernel needs non-decreasing
-    # brackets/queries)
-    rcum = _cummax1(_cumsum1(resid))
-    rc = rcum / jnp.maximum(rcum[-1], 1e-37)
-    # a query of exactly 0.0 (zero-residual prefix) matches no bracket at
-    # all (the condition is strictly c_prev < q); nudge it to the smallest
-    # positive value so it lands in bracket 0 with G = 0
-    rc = jnp.maximum(rc, 1e-30)
-    ce = _sorted_uniforms_cum(key, n_out)
-    denom = ce[n_res]
-    j = jnp.arange(n_out, dtype=jnp.int32)
-    u = jnp.where(j < n_res, jnp.minimum(ce[:-1] / denom, 1.5), 1.75)
-    from ..ops.fused_gather import resample_gather_rows_u
-    _, G = resample_gather_rows_u(jnp.zeros((0, n_out), jnp.int32), u, rc,
-                                  interpret=interpret)
-    return _pinned_F(_cumsum1(det) + G, n_out)
 
 
 def _F_to_parents(F, n_out: int):
@@ -464,201 +362,53 @@ def _unpack_rows(big, leaves, meta, parents, n):
     return out_leaves
 
 
-def _unpack_split(outs, leaves, meta, parents, n):
-    """Rebuild trace leaves from the split-kernel per-piece outputs
-    (ops/fused_gather.resample_gather_split): output i IS packable leaf
-    i's gathered rows — no matrix slicing at all."""
-    out_leaves = []
-    it = iter(outs)
-    for l, (dtype, shape, width, ax) in zip(leaves, meta):
-        if width == 0:
-            if ax is None or jnp.ndim(l) <= ax:
-                out_leaves.append(l)
-            else:
-                out_leaves.append(jnp.take(l, parents, axis=ax))
-            continue
-        out_leaves.append(_seg_to_leaf(next(it), dtype, shape, ax, n))
-    return out_leaves
-
-
-import threading as _threading
-
-_ASSUME_UNPARTITIONED = _threading.local()  # .stack: per-thread flag stack
-
-
-class assume_unpartitioned:
-    """Context: values traced inside are KNOWN to be per-device local blocks
-    (the body of a ``jax.shard_map`` over the particle axis), so
-    :func:`_maybe_partitioned` may answer False and re-enable the fused
-    Pallas paths — a ``pallas_call`` inside ``shard_map`` runs on exactly
-    its local shard, which is precisely the blockwise-resampling semantics.
-    Never use outside a shard_map body (or a provably single-device
-    region). The flag is thread-local: concurrent tracing in another
-    thread (e.g. a global resample on sharded inputs while a shard_map
-    body traces here) must not see this context's assumption."""
-
-    def __enter__(self):
-        stack = getattr(_ASSUME_UNPARTITIONED, "stack", None)
-        if stack is None:
-            stack = _ASSUME_UNPARTITIONED.stack = []
-        stack.append(True)
-        return self
-
-    def __exit__(self, *exc):
-        _ASSUME_UNPARTITIONED.stack.pop()
-        return False
-
-
-def _maybe_partitioned(x) -> bool:
-    """Conservatively True when ``x``'s leading (particle) axis may be
-    partitioned over more than one device — the fused Pallas kernels must
-    then be skipped: a ``pallas_call`` does not partition under GSPMD, so
-    it would see only the local shard (wrong ancestry) or force a gather.
-
-    Inside an :class:`assume_unpartitioned` region (shard_map bodies, where
-    every value is a local block by construction) the answer is False.
-
-    Concrete arrays are definitive (``sharding.shard_shape``). Traced
-    arrays in auto-sharding mode carry no per-array spec, but ``jax.typeof``
-    exposes the abstract mesh the computation compiles against — any mesh
-    with >1 device means GSPMD may partition this value, so we fall back to
-    the XLA gather path (correct under any sharding). When introspection
-    fails entirely (JAX-version/config dependent for traced values), be
-    conservative: assume partitioned whenever >1 device exists, so an
-    inconclusive answer can never re-enable the Pallas path on sharded
-    inputs."""
-    if getattr(_ASSUME_UNPARTITIONED, "stack", None):
-        return False
-    s = getattr(x, "sharding", None)
-    if s is not None:
-        try:
-            return s.shard_shape(jnp.shape(x))[0] != jnp.shape(x)[0]
-        except Exception:
-            ds = getattr(s, "device_set", None)
-            if ds is not None:
-                return len(ds) > 1
-            return len(jax.devices()) > 1
-    try:
-        mesh = jax.typeof(x).sharding.mesh
-        return getattr(mesh, "size", 0) > 1
-    except Exception:
-        return len(jax.devices()) > 1
-
-
-def _gather_traces(traces, parents, clustered: bool = False):
-    """Ancestry gather ``traces[parents]`` over the particle axis.
-
-    All 4-byte leaves are packed lane-dense into a single [D, N] matrix
-    (time-major stacked leaves concatenate for free), gathered in ONE
-    in-lane gather, and split back (an optimization barrier pins the packed
-    form — XLA would otherwise rewrite it into per-leaf gathers, each paying
-    a full (8,128)-tile read per row).
-
-    With ``clustered=True`` (non-decreasing parents from offspring-count
-    resampling) and ``config.clustered_gather`` enabled, the gather runs in
-    a fused Pallas kernel (ops/fused_gather.py: ranged DMA + exact one-hot
-    MXU select) emitting the packed [D, n] matrix directly.
-    """
-    from .. import config as _config
+def _pack(traces):
+    """(packed [D, N] int32 matrix or None, leaves, meta, treedef)."""
     leaves, axes, treedef = _flatten_with_axes(traces)
-    n = parents.shape[0]
     rows, meta = _pack_rows(leaves, axes)
     packed = [r for r in rows if r is not None]
     big = None
     if packed:
         big = jnp.concatenate(packed, axis=0) if len(packed) > 1 else packed[0]
-        big = jax.lax.optimization_barrier(big)
-        use_pallas = (clustered and _config.clustered_gather
-                      and jax.devices()[0].platform == "tpu"
-                      and not _maybe_partitioned(parents))
-        if use_pallas:
-            from ..ops.fused_gather import gather_rows_clustered
-            big = gather_rows_clustered(big, parents)  # [D, n] lane-dense
-        else:
-            big = jnp.take(big, parents, axis=1)
-            big = jax.lax.optimization_barrier(big)
-    out_leaves = _unpack_rows(big, leaves, meta, parents, n)
+    return big, leaves, meta, treedef
+
+
+def _gather_traces(traces, parents):
+    """Ancestry gather ``traces[parents]`` over the particle axis.
+
+    All 4-byte leaves are packed into a single [D, N] matrix (time-major
+    stacked leaves concatenate for free), gathered in ONE column gather,
+    and split back.
+    """
+    big, leaves, meta, treedef = _pack(traces)
+    if big is not None:
+        big = jnp.take(big, parents, axis=1)
+    out_leaves = _unpack_rows(big, leaves, meta, parents, parents.shape[0])
     return jax.tree_util.tree_unflatten(treedef, out_leaves)
 
 
-def _gather_traces_from_F(traces, F, n_out: int | None = None):
-    """Fused resampling gather directly from cumulative hit counts: parent
-    construction (replacing the XLA scatter in ``counts_to_parents``), the
-    ancestry gather, and the per-leaf unpack all run in one Pallas kernel
-    pass (ops/fused_gather.py). ``n_out`` (static) defaults to the source
-    count; pass a different value for resizing. Returns
-    ``(new_traces, parents)``."""
-    leaves, axes, treedef = _flatten_with_axes(traces)
-    n_src = F.shape[0]
-    m = n_src if n_out is None else n_out
-    rows, meta = _pack_rows(leaves, axes)
-    packed = [r for r in rows if r is not None]
-    d1 = sum(p.shape[0] for p in packed) + 1
-    if d1 > 1022 and m != n_src:
-        # wide resize packs: clustered parents + one packed XLA gather
-        big = jax.lax.optimization_barrier(jnp.concatenate(
-            packed + [jnp.arange(n_src, dtype=jnp.int32)[None, :]], axis=0))
-        parents = _F_to_parents(F, m)
-        bigT = jax.lax.optimization_barrier(
-            jnp.take(big, parents, axis=1))[:-1]
-    elif n_src >= 1024 and packed:
-        # pack-free split path: pieces read in place, one gathered output
-        # PER PIECE (the packed-storage mat comes back shape-identical) —
-        # no packed matrix on either side of the kernel. Gated to LARGE
-        # packs (>= 64 MB): below that the pack kernel's single-DMA
-        # single-output pipeline wins (measured 2.31 vs 2.49 ms on the
-        # N=100K headline), above it the pack pass alone costs ~1.6 ms at
-        # the MOT N=1M shape
-        from ..ops.fused_gather import resample_gather_split
-        outs, parents = resample_gather_split(packed, F, n_out=n_out)
-        out_leaves = _unpack_split(outs, leaves, meta, parents, m)
-        return jax.tree_util.tree_unflatten(treedef, out_leaves), parents
-    else:
-        # small-N fallback: the Pallas pack kernel assembles the gather
-        # matrix reading the trace leaves in place (the XLA concat it
-        # replaced measured ~2.5 ms/resample at N=1M)
-        from ..ops.fused_gather import resample_gather_rows
-        arg = packed if packed else jnp.zeros((0, n_src), jnp.int32)
-        bigT, parents = resample_gather_rows(arg, F, n_out=n_out)
-    out_leaves = _unpack_rows(bigT, leaves, meta, parents, m)
-    return jax.tree_util.tree_unflatten(treedef, out_leaves), parents
+def _use_triton_gather() -> bool:
+    """The one choice of gather path: the Triton kernel
+    (``ops/triton_gather.py``) on a GPU backend with a single device, the
+    XLA column gather everywhere else. A ``pallas_call`` does not partition
+    under GSPMD, so with several devices visible (where the particle axis
+    may be sharded) the XLA path is taken."""
+    return jax.default_backend() == "gpu" and jax.device_count() == 1
 
 
-def _gather_traces_from_cu(traces, c, u):
-    """Fused multinomial resampling gather from float brackets (see
-    ``multinomial_cu``): parent construction and the ancestry gather run in
-    one Pallas pass with the inverse-CDF one-hot built in-kernel. Falls back
-    to the merge-count F path for very wide packs (>1022 rows). Returns
-    ``(new_traces, parents)``."""
-    leaves, axes, treedef = _flatten_with_axes(traces)
-    n_src = c.shape[0]
-    m = u.shape[0]
-    rows, meta = _pack_rows(leaves, axes)
-    packed = [r for r in rows if r is not None]
-    d1 = sum(p.shape[0] for p in packed) + 1
-    if d1 > 1022:
-        big = jax.lax.optimization_barrier(jnp.concatenate(
-            packed + [jnp.arange(n_src, dtype=jnp.int32)[None, :]], axis=0))
-        F = _pinned_F(_merge_count(c, u), m)
-        if m != n_src:
-            parents = _F_to_parents(F, m)
-            bigT = jax.lax.optimization_barrier(
-                jnp.take(big, parents, axis=1))[:-1]
-        else:
-            from ..ops.fused_gather import resample_gather_rows
-            bigT, parents = resample_gather_rows(big, F, has_index_row=True)
-    elif n_src >= 1024 and packed:
-        # pack-free split path (see _gather_traces_from_F; same size gate)
-        from ..ops.fused_gather import resample_gather_split_u
-        outs, parents = resample_gather_split_u(packed, c, u)
-        out_leaves = _unpack_split(outs, leaves, meta, parents, m)
-        return jax.tree_util.tree_unflatten(treedef, out_leaves), parents
+def _gather_from_F(traces, F, n_out: int):
+    """``(traces[parents], parents)`` for the clustered parents
+    ``parents_j = #{i : F_i <= j}`` encoded by the cumulative offspring
+    counts ``F``."""
+    big, leaves, meta, treedef = _pack(traces)
+    if big is not None and _use_triton_gather():
+        from ..ops.triton_gather import resample_gather
+        big, parents = resample_gather(big, F, n_out)
     else:
-        # small-N fallback (see _gather_traces_from_F)
-        from ..ops.fused_gather import resample_gather_rows_u
-        arg = packed if packed else jnp.zeros((0, n_src), jnp.int32)
-        bigT, parents = resample_gather_rows_u(arg, c, u)
-    out_leaves = _unpack_rows(bigT, leaves, meta, parents, m)
+        parents = _F_to_parents(F, n_out)
+        if big is not None:
+            big = jnp.take(big, parents, axis=1)
+    out_leaves = _unpack_rows(big, leaves, meta, parents, n_out)
     return jax.tree_util.tree_unflatten(treedef, out_leaves), parents
 
 
@@ -680,127 +430,27 @@ def _new_weights_sub(n, log_weights, log_priorities, parents, custom):
     return lw + (logsumexp(log_weights) - logsumexp(lw))
 
 
-def blockwise_compose(key, weights_blocks, method: str,
-                      interpret: bool = False):
-    """Compose per-block offspring structures for ``n_blocks`` independent
-    resamples into ONE globally clustered fused-kernel pass (the
-    single-device fast path of ``parallel.pf_resample_blockwise``; on a
-    mesh each shard runs its own fused kernel instead).
-
-    Per-block parents are non-decreasing within each block and blocks are
-    ascending, so the concatenation is globally clustered. Composition per
-    method:
-
-    - ``systematic``: per-block cumulative hit counts ``F_k`` (vmapped,
-      pure cumsum arithmetic) plus block offsets — BIT-IDENTICAL to the
-      per-block formulation.
-    - ``multinomial``: per-block float brackets ``(c_k, u_k)`` rescaled to
-      ``((k + x)/K)`` so brackets and queries stay ascending across blocks
-      and every query lands inside its own block's bracket span. Same law
-      as per-block draws (f32 rescale rounding can shift exact-boundary
-      ties); ``u`` is clamped ≥ ``K·2^-23`` so adding the block index
-      cannot round a tiny uniform onto the block boundary (strict
-      ``c_prev < u`` would then match nothing).
-    - ``residual``: per-block deterministic ⌊b·w⌋ counts (vmapped) plus
-      the multinomial remainder counted by ONE role-swapped kernel pass
-      over the same ``(k + x/2)/K`` composition (sources = per-block
-      sorted remainder uniforms with 1.5/1.75 padding, halved to stay
-      below the next block).
-
-    Returns ``("F", F_global)`` or ``("cu", (c_global, u_global))``.
-    """
-    K, b = weights_blocks.shape
-    keys = jr.split(key, K)
-    offs = (jnp.arange(K, dtype=jnp.int32) * b)[:, None]
-    kf = jnp.arange(K, dtype=jnp.float32)[:, None]
-    invK = 1.0 / float(K)
-    if method == "systematic":
-        F = jax.vmap(systematic_F)(keys, weights_blocks)
-        return "F", (F + offs).reshape(K * b)
-    if method == "stratified":
-        # unsorted stratified: per-block float brackets exactly like
-        # multinomial (per-stratum draws are ascending by construction;
-        # same clamp rationale as the multinomial branch)
-        c, u = jax.vmap(stratified_cu)(keys, weights_blocks)
-        u = jnp.maximum(u, max(K, 2) * 2.0 ** -21)
-        cg = ((kf + c) * invK).reshape(K * b)
-        ug = ((kf + u) * invK).reshape(K * b)
-        return "cu", (cg, ug)
-    if method == "multinomial":
-        c, u = jax.vmap(multinomial_cu)(keys, weights_blocks)
-        # clamp >= K*2^-21 (not 2^-23): with ~1 ulp of margin, (k+u)*invK
-        # and the block boundary k*invK can still round to EQUAL f32 values
-        # for k near K at non-power-of-two K, so the strict c_prev < u
-        # bracket condition would match nothing (corrupt 0x80808080 slot).
-        # 2^-21 leaves >= 4 ulps after the rescale; matches the residual
-        # path's margin (2^-22 before its extra halving).
-        u = jnp.maximum(u, max(K, 2) * 2.0 ** -21)
-        cg = ((kf + c) * invK).reshape(K * b)
-        ug = ((kf + u) * invK).reshape(K * b)
-        return "cu", (cg, ug)
-    if method == "residual":
-        scaled = b * weights_blocks
-        det = jnp.floor(scaled).astype(jnp.int32)
-        n_res = b - jnp.sum(det, axis=1)
-        resid = scaled - det.astype(weights_blocks.dtype)
-        rcum = jax.lax.cummax(jnp.cumsum(resid, axis=1), axis=1)
-        rc = rcum / jnp.maximum(rcum[:, -1:], 1e-37)
-        rc = jnp.maximum(rc, max(K, 2) * 2.0 ** -22)
-        ce = jax.vmap(lambda k: _sorted_uniforms_cum(k, b))(keys)
-        denom = ce[jnp.arange(K), n_res][:, None]
-        j = jnp.arange(b, dtype=jnp.int32)[None, :]
-        u = jnp.where(j < n_res[:, None],
-                      jnp.minimum(ce[:, :-1] / denom, 1.5), 1.75)
-        # compose sources (u, up to 1.75) and queries (rc <= 1) with the
-        # SAME monotone per-block map x -> (k + x/2)/K: ascending across
-        # blocks, within-block counts preserved
-        ug = ((kf + 0.5 * u) * invK).reshape(K * b)
-        rcg = ((kf + 0.5 * rc) * invK).reshape(K * b)
-        from ..ops.fused_gather import resample_gather_rows_u
-        _, gidx = resample_gather_rows_u(jnp.zeros((0, K * b), jnp.int32),
-                                         ug, rcg, interpret=interpret)
-        G = gidx.reshape(K, b) - offs  # per-block remainder hit counts
-        F = _pinned_F_blocks(jnp.cumsum(det, axis=1) + G, b)
-        return "F", (F + offs).reshape(K * b)
-    raise ValueError(f"no fused blockwise composition for {method!r}")
-
-
-def _pinned_F_blocks(F, n_out: int):
-    """Per-row :func:`_pinned_F`: clip, pin last column, enforce monotone."""
-    F = jnp.clip(F, 0, n_out).at[:, -1].set(n_out)
-    return jax.lax.cummax(F, axis=1)
-
-
-def _resample_block(key, traces, log_weights, parent_fn, priority_fn=None,
-                    F_fn=None, cu_fn=None, clustered=True):
+def _resample_block(key, traces, log_weights, parent_fn, priority_fn=None):
     """Block-local resample preserving the block's total weight (sub-state
     semantics, ref: src/resample.jl:205-218) on bare (traces, log_weights).
     This is the per-shard body of the shard_map blockwise path
-    (``parallel/distributed.py``): under :class:`assume_unpartitioned` the
-    fused Pallas gathers run on the local shard. Returns
+    (``parallel/distributed.py``). Returns
     ``(new_traces, parents_local, new_log_weights)``."""
     b = log_weights.shape[0]
     custom = priority_fn is not None
     lp = priority_fn(log_weights) if custom else log_weights
     w, _ = safe_softmax(lp)
-    from .. import config as _config
-    use_fused = ((F_fn is not None or cu_fn is not None)
-                 and _config.clustered_gather
-                 and jax.devices()[0].platform == "tpu"
-                 and not _maybe_partitioned(log_weights))
-    if use_fused and cu_fn is not None:
-        new_traces, parents = _gather_traces_from_cu(traces, *cu_fn(key, w))
-    elif use_fused:
-        new_traces, parents = _gather_traces_from_F(traces, F_fn(key, w))
-    else:
-        parents = parent_fn(key, w, lp)
-        new_traces = _gather_traces(traces, parents, clustered=clustered)
+    parents = parent_fn(key, w, lp)
+    new_traces = _gather_traces(traces, parents)
     new_lw = _new_weights_sub(b, log_weights, lp, parents, custom)
     return new_traces, parents, new_lw
 
 
-def _resample_impl(key, state, parent_fn, priority_fn, check,
-                   clustered: bool = False, F_fn=None, cu_fn=None):
+def _resample_impl(key, state, priority_fn, check, F_fn=None,
+                   parent_fn=None):
+    """Shared body of the ``pf_*_resample`` verbs. Clustered methods pass
+    ``F_fn(key, weights, n_out)`` (cumulative offspring counts); the
+    weight-sorted ones pass ``parent_fn(key, weights, log_priorities)``."""
     is_sub = isinstance(state, ParticleFilterSubState)
     log_weights = state.log_weights
     n = state.n_particles
@@ -809,25 +459,12 @@ def _resample_impl(key, state, parent_fn, priority_fn, check,
     weights, invalid = safe_softmax(log_priorities)
     apply_check(invalid, check)
 
-    from .. import config as _config
-    use_fused = ((F_fn is not None or cu_fn is not None) and not is_sub
-                 and _config.clustered_gather
-                 and jax.devices()[0].platform == "tpu"
-                 and not _maybe_partitioned(log_weights))
-    if use_fused and cu_fn is not None:
-        # single Pallas pass with in-kernel inverse-CDF brackets: no merged
-        # count array, no XLA scatter anywhere
-        new_traces, parents = _gather_traces_from_cu(state.traces,
-                                                     *cu_fn(key, weights))
-    elif use_fused:
-        # single Pallas pass: parents from cumulative hit counts + ancestry
-        # gather + leaf unpack (no XLA scatter, no post-hoc unpack)
-        new_traces, parents = _gather_traces_from_F(state.traces,
-                                                    F_fn(key, weights))
+    if F_fn is not None:
+        new_traces, parents = _gather_from_F(state.traces,
+                                             F_fn(key, weights, n), n)
     else:
         parents = parent_fn(key, weights, log_priorities)
-        new_traces = _gather_traces(state.traces, parents,
-                                    clustered=clustered and not is_sub)
+        new_traces = _gather_traces(state.traces, parents)
     if is_sub:
         new_lw = _new_weights_sub(n, log_weights, log_priorities, parents,
                                   custom)
@@ -844,35 +481,39 @@ def _resample_impl(key, state, parent_fn, priority_fn, check,
 
 
 def pf_multinomial_resample(key, state, priority_fn=None, check="warn"):
-    return _resample_impl(
-        key, state, lambda k, w, lp: multinomial_parents(k, w),
-        priority_fn, check, F_fn=multinomial_F, cu_fn=multinomial_cu)
+    with jax.named_scope("pf_resample"):
+        return _resample_impl(key, state, priority_fn, check,
+                              F_fn=multinomial_F)
 
 
 def pf_residual_resample(key, state, priority_fn=None, check="warn"):
-    return _resample_impl(
-        key, state, lambda k, w, lp: residual_parents(k, w),
-        priority_fn, check, F_fn=residual_F_fused)
+    with jax.named_scope("pf_resample"):
+        return _resample_impl(key, state, priority_fn, check,
+                              F_fn=residual_F)
 
 
 def pf_stratified_resample(key, state, priority_fn=None, check="warn",
                            sort_particles: bool = True):
-    return _resample_impl(
-        key, state,
-        lambda k, w, lp: stratified_parents(
-            k, w, log_priorities=lp, sort_particles=sort_particles),
-        priority_fn, check, clustered=not sort_particles,
-        cu_fn=None if sort_particles else stratified_cu)
+    with jax.named_scope("pf_resample"):
+        if not sort_particles:
+            return _resample_impl(key, state, priority_fn, check,
+                                  F_fn=stratified_F)
+        return _resample_impl(
+            key, state, priority_fn, check,
+            parent_fn=lambda k, w, lp: stratified_parents(
+                k, w, log_priorities=lp))
 
 
 def pf_systematic_resample(key, state, priority_fn=None, check="warn",
                            sort_particles: bool = False):
-    return _resample_impl(
-        key, state,
-        lambda k, w, lp: systematic_parents(
-            k, w, log_priorities=lp, sort_particles=sort_particles),
-        priority_fn, check, clustered=not sort_particles,
-        F_fn=None if sort_particles else systematic_F)
+    with jax.named_scope("pf_resample"):
+        if not sort_particles:
+            return _resample_impl(key, state, priority_fn, check,
+                                  F_fn=systematic_F)
+        return _resample_impl(
+            key, state, priority_fn, check,
+            parent_fn=lambda k, w, lp: systematic_parents(
+                k, w, log_priorities=lp, sort_particles=True))
 
 
 _METHODS = {

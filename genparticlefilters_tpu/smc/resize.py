@@ -6,7 +6,7 @@
   stratified-resample the rest so all survivors are unique.
 - ``pf_replicate`` / ``pf_dereplicate`` (ref lines 236-297): integer
   fan-out/fan-in of the particle axis in contiguous or interleaved layout —
-  pure reshape/gather on TPU.
+  pure reshape/gather.
 - ``pf_coalesce`` (ref lines 309-334): merge duplicate particles. The
   static-shape formulation keeps all N slots: each duplicate group's weight
   is summed onto its first occurrence (+ log(n_unique/N), matching the
@@ -17,7 +17,7 @@
   first folding any nonzero LML estimate back into the weights.
 
 Target sizes are static Python ints (new compiled shapes) — resizing is a
-shape change, so "recompile per size" is the TPU-native semantics; for
+shape change, so "recompile per size" is the static-shape semantics; for
 online adaptation inside one jit use ``pf_replicate``/``pf_dereplicate``
 (shape-static fan factors) or masked coalescing.
 """
@@ -32,8 +32,8 @@ from ..core.choicemap import ChoiceMap, EMPTY
 from ..core.gfi import GenFn
 from ..utils.weights import safe_softmax, apply_check, logsumexp
 from .state import ParticleFilterState
-from .resample import (multinomial_parents, residual_parents, _gather_traces,
-                       _cumsum1, _cummax1)
+from .resample import (multinomial_F, residual_F, counts_to_parents,
+                       _gather_traces, _gather_from_F, _cumsum1, _cummax1)
 
 __all__ = ["pf_resize", "pf_multinomial_resize", "pf_residual_resize",
            "pf_optimal_resize", "find_inv_w_threshold",
@@ -55,32 +55,15 @@ def _resize_weights(n_new, log_weights, log_priorities, parents, custom):
     return lw + (jnp.log(float(n_new)) - logsumexp(lw))
 
 
-def _resize_impl(key, state, n_particles, parent_fn, priority_fn, check,
-                 cu_fn=None, F_fn=None):
-    import jax as _jax
-    from .. import config as _config
-    from .resample import (_maybe_partitioned, _gather_traces_from_cu,
-                           _gather_traces_from_F)
+def _resize_impl(key, state, n_particles, F_fn, priority_fn, check):
     custom = priority_fn is not None
     log_priorities = (priority_fn(state.log_weights) if custom
                       else state.log_weights)
     weights, invalid = safe_softmax(log_priorities)
     apply_check(invalid, check)
     new_lml = _fold_lml(state)
-    use_fused = ((cu_fn is not None or F_fn is not None)
-                 and _config.clustered_gather
-                 and _jax.devices()[0].platform == "tpu"
-                 and not _maybe_partitioned(state.log_weights))
-    if use_fused and cu_fn is not None:
-        new_traces, parents = _gather_traces_from_cu(
-            state.traces, *cu_fn(key, weights, n_particles))
-    elif use_fused:
-        new_traces, parents = _gather_traces_from_F(
-            state.traces, F_fn(key, weights, n_particles),
-            n_out=n_particles)
-    else:
-        parents = parent_fn(key, weights, n_particles)
-        new_traces = _gather_traces(state.traces, parents)
+    new_traces, parents = _gather_from_F(
+        state.traces, F_fn(key, weights, n_particles), n_particles)
     new_lw = _resize_weights(n_particles, state.log_weights, log_priorities,
                              parents, custom)
     return ParticleFilterState(new_traces, new_lw, new_lml, parents)
@@ -89,17 +72,17 @@ def _resize_impl(key, state, n_particles, parent_fn, priority_fn, check,
 def pf_multinomial_resize(key, state, n_particles: int, priority_fn=None,
                           check="warn"):
     """(ref: src/resize.jl:46-67)"""
-    from .resample import multinomial_cu
-    return _resize_impl(key, state, n_particles, multinomial_parents,
-                        priority_fn, check, cu_fn=multinomial_cu)
+    with jax.named_scope("pf_resize"):
+        return _resize_impl(key, state, n_particles, multinomial_F,
+                            priority_fn, check)
 
 
 def pf_residual_resize(key, state, n_particles: int, priority_fn=None,
                        check="warn"):
     """(ref: src/resize.jl:87-124)"""
-    from .resample import residual_F_fused
-    return _resize_impl(key, state, n_particles, residual_parents,
-                        priority_fn, check, F_fn=residual_F_fused)
+    with jax.named_scope("pf_resize"):
+        return _resize_impl(key, state, n_particles, residual_F,
+                            priority_fn, check)
 
 
 def _log_inv_w_threshold(log_weights, n_particles: int):
@@ -166,7 +149,6 @@ def pf_optimal_resize(key, state, n_particles: int, check="warn"):
     F = jnp.clip(F, 0, n_res).at[-1].set(n_res)
     F = _cummax1(F)
     counts = F - jnp.concatenate([jnp.zeros((1,), F.dtype), F[:-1]])
-    from .resample import counts_to_parents
     res_parents = counts_to_parents(counts, m)  # first n_res entries valid
 
     # output layout: kept first (index order), then the resampled picks

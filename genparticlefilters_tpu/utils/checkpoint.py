@@ -1,7 +1,7 @@
 """Checkpoint / resume for particle filter states (SURVEY.md §5).
 
 The reference has no serialization (state is an in-memory Julia struct);
-on preemptible TPU pods checkpointing is table stakes. Because a
+on preemptible accelerator machines checkpointing is table stakes. Because a
 :class:`~..smc.state.ParticleFilterState` is a pytree of arrays, orbax
 makes this nearly free: we save the flattened leaves plus the treedef-
 defining model identity, and restore onto the running model's structure.

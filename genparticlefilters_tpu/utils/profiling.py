@@ -1,5 +1,5 @@
-"""Profiling hooks (SURVEY.md §5: reference has none; TPU build uses the
-JAX profiler / xprof)."""
+"""Profiling hooks (SURVEY.md §5: reference has none; this build uses the
+JAX profiler)."""
 
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ __all__ = ["trace_profile", "Timer"]
 
 @contextlib.contextmanager
 def trace_profile(logdir: str):
-    """Capture an xprof trace of the enclosed block (view with
-    TensorBoard / xprof)."""
+    """Capture a ``jax.profiler`` trace of the enclosed block into
+    ``logdir`` (view with TensorBoard or Perfetto)."""
     jax.profiler.start_trace(logdir)
     try:
         yield
@@ -23,24 +23,23 @@ def trace_profile(logdir: str):
 
 
 class Timer:
-    """Wall-clock timer that forces completion via a host fetch of the
-    given result pytree (over remote backends ``block_until_ready`` may not
-    synchronize; a host fetch always does)."""
+    """Wall-clock timer; ``stop(result)`` first waits for ``result`` (any
+    pytree of arrays) with ``jax.block_until_ready``, so the elapsed time
+    covers the device work and not only its dispatch."""
 
     def __init__(self):
         self.elapsed = None
         self._t0 = None
 
     def __enter__(self):
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.elapsed = time.time() - self._t0
+        self.elapsed = time.perf_counter() - self._t0
 
     def stop(self, result=None):
         if result is not None:
-            import numpy as np
-            np.asarray(jax.tree_util.tree_leaves(result)[0]).ravel()[:1]
-        self.elapsed = time.time() - self._t0
+            jax.block_until_ready(result)
+        self.elapsed = time.perf_counter() - self._t0
         return self.elapsed

@@ -87,8 +87,7 @@ def apply_check(invalid, check):
          callbacks are not a guaranteed error channel — delivery is
          asynchronous and backend-dependent, the error surfaces at the next
          host synchronization point (which may be far from the offending
-         op), and on asynchronously-dispatched TPU programs it can leave
-         the runtime poisoned. It is a fail-loud diagnostic, not a
+         op). It is a fail-loud diagnostic, not a
          recoverable control-flow signal: never ``except`` it to continue
          the same computation. For a value-level error channel that is
          guaranteed under jit, run the filter under

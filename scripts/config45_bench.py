@@ -13,7 +13,7 @@ particles, T=10, ESS-triggered systematic resampling, with ONLINE
 RESIZING: every filter runs a mid-stream pf_resize 1M -> 500K -> 1M
 (residual), exercising the resize path at full scale on the chip.
 
-Usage: nohup python scripts/config45_bench.py > /tmp/config45.log 2>&1 &
+Usage: python scripts/config45_bench.py (writes chiprun_out/config45.json)
 """
 
 import json
@@ -22,18 +22,16 @@ import sys
 import time
 from functools import partial
 
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
 from jax import lax
 
 import genparticlefilters_tpu as g
+from genparticlefilters_tpu.utils.compile_cache import use_compile_cache
 
 
 def time_chained(tag, run_one, ks=(2, 22), reps=4, work=1):
@@ -180,16 +178,19 @@ def config5(N=1_000_000, T=10):
 
 
 def main():
-    print("device:", jax.devices()[0], flush=True)
+    use_compile_cache()
+    dev = jax.devices()[0]
+    print(f"device: {len(jax.devices())} x {dev.device_kind}", flush=True)
     config4()
     config4_smcp3()
     config5()
-    # BENCH-style artifact for the judge (VERDICT r4 next #8): one JSON
-    # row per config, committed alongside the driver's BENCH_rNN
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "CONFIG_BENCH_r05.json")
+    out = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "config45.json")
     with open(path, "w") as f:
-        json.dump({"device": str(jax.devices()[0]),
+        json.dump({"device_kind": dev.device_kind,
+                   "device_count": len(jax.devices()),
                    "rows": _RESULTS}, f, indent=1)
     print("wrote", path, flush=True)
 

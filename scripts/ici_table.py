@@ -1,10 +1,9 @@
-"""Derive the docs/parallel.md ICI communication-volume table from
-compiled HLO (VERDICT r3 #1: no hand arithmetic — lower every distributed
-phase of the flagship config over a 16-device mesh and count the actual
-collective instructions and their byte volumes).
+"""Derive the docs/parallel.md communication-volume table from compiled
+HLO: lower every distributed phase of the flagship config over a 4-device
+mesh and count the collective instructions and their byte volumes.
 
-Runs on 16 virtual CPU devices (shapes and SPMD partitioning are identical
-to a real v5e-16; only the link bandwidth is estimated). Usage:
+Runs on 4 virtual CPU devices (the shapes and the SPMD partitioning are
+those of a 4-card mesh; no time is modelled or measured). Usage:
 
     python scripts/ici_table.py            # print the table
     python scripts/ici_table.py --write    # also splice it into docs/parallel.md
@@ -14,7 +13,7 @@ import os
 import re
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=16"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
@@ -34,8 +33,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 N = 1 << 20          # 1M particles (north-star workload, BASELINE.json)
 T = 10
-K = 16               # v5e-16
-ICI_GBPS = 45e9      # per-link per-direction, v5e 1-D ring
+K = 4                # one host of four cards
 
 _DTYPE_BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
                 "bf16": 2, "f16": 2, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
@@ -77,18 +75,6 @@ def fmt_bytes(b):
     if b >= 1 << 10:
         return f"{b / (1 << 10):.1f} KB"
     return f"{b} B"
-
-
-def fmt_time(b):
-    """Modeled, NOT measured: bytes/assumed-bandwidth hand arithmetic.
-    Every cell this emits is labeled ``est.`` — the byte column is the
-    only HLO-derived hard claim (VERDICT r4 weak #6)."""
-    t = b / ICI_GBPS
-    if t >= 1e-3:
-        return f"est. ~{t * 1e3:.1f} ms"
-    if t >= 1e-6:
-        return f"est. ~{t * 1e6:.0f} µs"
-    return "est. <1 µs (latency-bound)"
 
 
 def main(write=False):
@@ -139,29 +125,24 @@ def main(write=False):
         txt = lower().compile().as_text()
         found = collective_bytes(txt)
         if not found:
-            rows.append((name, "none", "0", "—", when))
+            rows.append((name, "none", "0", when))
             continue
         for op, (cnt, nbytes) in sorted(found.items(),
                                         key=lambda kv: -kv[1][1]):
-            rows.append((name, f"{cnt}× `{op}`", fmt_bytes(nbytes),
-                         fmt_time(nbytes), when))
+            rows.append((name, f"{cnt}× `{op}`", fmt_bytes(nbytes), when))
             name = "  \"" + ""  # continuation rows
 
     lines = [
         "| phase | collective instructions (compiled HLO) | "
-        "result bytes/device | modeled ICI time | when |",
-        "|---|---|---|---|---|",
+        "result bytes/device | when |",
+        "|---|---|---|---|",
     ]
     for r in rows:
         lines.append("| " + " | ".join(r) + " |")
     lines.append("")
     lines.append(
-        "The *collective instructions* and *result bytes/device* columns "
-        "are derived from the compiled per-device HLO (hard claims). Every "
-        "`est.` cell in *modeled ICI time* is bytes ÷ an **assumed** "
-        f"{ICI_GBPS / 1e9:.0f} GB/s per-link bandwidth — a model, not a "
-        "measurement; no multi-chip hardware is reachable from this "
-        "environment.")
+        f"Both columns are read from the compiled per-device HLO of a "
+        f"{K}-device mesh at N={N}; collective times are not measured.")
     table = "\n".join(lines)
     print(table)
 

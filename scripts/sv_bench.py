@@ -1,11 +1,10 @@
 """Config-3 benchmark: stochastic volatility, N=100K, T=100,
 ESS-triggered systematic resampling + move-reweight rejuvenation."""
-import sys, time
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
+import os, sys, time
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+from genparticlefilters_tpu.utils.compile_cache import use_compile_cache
+use_compile_cache()
 import jax.numpy as jnp, jax.random as jr, numpy as np
 from functools import partial
 from jax import lax

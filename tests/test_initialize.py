@@ -99,7 +99,7 @@ def test_initialize_stratified_custom_proposal():
 
 
 def test_initialize_dynamic_flag_accepted():
-    # ref: test/initialize.jl:32-37 — no trace-type distinction on TPU;
+    # ref: test/initialize.jl:32-37 — no trace-type distinction here;
     # flag accepted for parity
     state = g.pf_initialize(jr.key(0), line_model, (0,), g.choicemap(), 10,
                             dynamic=True)

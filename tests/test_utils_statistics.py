@@ -150,3 +150,13 @@ def test_checkpoint_incompatible_raises(tmp_path):
                               16)
     with pytest.raises(ValueError):
         restore_state(p, wrong_n)
+
+
+def test_timer_waits_for_result():
+    import jax.numpy as jnp
+    from genparticlefilters_tpu.utils.profiling import Timer
+    with Timer() as t:
+        x = jnp.arange(1000.0).sum()
+    assert t.elapsed >= 0.0
+    t2 = Timer().__enter__()
+    assert t2.stop(x) >= 0.0 and t2.elapsed is not None
